@@ -1,6 +1,6 @@
 """CLI smoke tests: convert -> packed dir -> generate (raw ids, no tokenizer)."""
 
-from xbitops_tpu.cli import main
+from xbitops.cli import main
 
 
 def test_cli_convert_and_generate(tmp_path, capsys):

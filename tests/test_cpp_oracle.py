@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from xbitops_tpu import formats
-from xbitops_tpu.utils import cpp_oracle, fixtures
+from xbitops import formats
+from xbitops.utils import cpp_oracle, fixtures
 
 
 def test_half_conversion_exact():
@@ -122,7 +122,7 @@ def test_fp16_accum_gate():
     """
     import jax.numpy as jnp
 
-    import xbitops_tpu as xb
+    import xbitops as xb
 
     K, N, g, bits = 2048, 128, 128, 4
     rng = np.random.default_rng(11)

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xbitops_tpu.kernels.decode_attention import decode_attention
+from xbitops.kernels.attention import decode_attention
 
 
 def ref_att(q, k, v, lengths, window=None):
@@ -35,7 +35,7 @@ def hmT(x):
 
 def pack_int8(kf, vf):
     """Row-major f32 k/v -> (words, scales, dequantized-bf16 refs)."""
-    from xbitops_tpu.models.llama import (
+    from xbitops.models.llama import (
         _pack_kv_scales, _pack_kv_words, _quant_kv,
     )
 
@@ -235,114 +235,6 @@ def test_decode_attention_paged_int8():
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-3)
 
 
-def test_decode_attention_fused_append():
-    """kv_new: the call writes the new rows at `positions` (drop past S)
-    and attends them; matches append-then-attend exactly.  On CPU this
-    exercises the fallback composition (the fused v2 kernel is TPU-only;
-    bench.py --selfcheck drives it on-chip)."""
-    B, S, H, Hkv, D = 3, 128, 8, 4, 128
-    key = jax.random.PRNGKey(11)
-    q = jax.random.normal(key, (B, H, D), jnp.bfloat16)
-    k = jax.random.normal(jax.random.fold_in(key, 1), (B, S, Hkv, D),
-                          jnp.bfloat16) * 0.3
-    v = jax.random.normal(jax.random.fold_in(key, 2), (B, S, Hkv, D),
-                          jnp.bfloat16) * 0.3
-    kn = jax.random.normal(jax.random.fold_in(key, 3), (B, Hkv, D),
-                           jnp.bfloat16) * 0.3
-    vn = jax.random.normal(jax.random.fold_in(key, 4), (B, Hkv, D),
-                           jnp.bfloat16) * 0.3
-    positions = jnp.asarray([0, 77, S], jnp.int32)  # last is a drop (>= S)
-    lens = jnp.minimum(positions + 1, S)
-    kT, vT = hmT(k), hmT(v)
-    b_i = jnp.arange(B)[:, None, None]
-    h_i = jnp.arange(Hkv)[None, :, None]
-    kT2 = kT.at[(b_i, h_i, positions[:, None, None])].set(
-        kn[:, :, None, :], mode="drop")
-    vT2 = vT.at[(b_i, h_i, positions[:, None, None])].set(
-        vn[:, :, None, :], mode="drop")
-    want = np.asarray(decode_attention(q, kT2, vT2, lens, block_s=64),
-                      np.float32)
-
-    # flat cache
-    got, k_upd, v_upd = decode_attention(
-        q, kT, vT, lens, block_s=64, kv_new=(kn, vn, positions))
-    np.testing.assert_allclose(np.asarray(got, np.float32), want,
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(k_upd), np.asarray(kT2))
-    np.testing.assert_array_equal(np.asarray(v_upd), np.asarray(vT2))
-
-    # stacked cache: only the indexed layer changes
-    L = 2
-    got, k_upd, v_upd = decode_attention(
-        q, jnp.stack([kT] * L), jnp.stack([vT] * L), lens, block_s=64,
-        layer_idx=jnp.int32(1), kv_new=(kn, vn, positions))
-    np.testing.assert_allclose(np.asarray(got, np.float32), want,
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(k_upd[1]), np.asarray(kT2))
-    np.testing.assert_array_equal(np.asarray(k_upd[0]), np.asarray(kT))
-    np.testing.assert_array_equal(np.asarray(v_upd[1]), np.asarray(vT2))
-
-
-def test_decode_attention_fused_append_int8():
-    """kv_new with a packed int8 cache: the call RMWs the new byte + scale
-    at `positions` (drop past S) and attends them; matches append-then-
-    attend exactly.  On CPU this exercises the kv_append_packed fallback
-    composition (the fused v2 kernel is TPU-only; bench.py --selfcheck
-    drives it on-chip)."""
-    from xbitops_tpu.kernels.kv_append import kv_append_packed
-    from xbitops_tpu.models.llama import _quant_kv
-
-    B, S, H, Hkv, D = 3, 128, 8, 4, 128
-    key = jax.random.PRNGKey(13)
-    q = jax.random.normal(key, (B, H, D), jnp.bfloat16)
-    kf = jax.random.normal(jax.random.fold_in(key, 1), (B, S, Hkv, D)) * 0.5
-    vf = jax.random.normal(jax.random.fold_in(key, 2), (B, S, Hkv, D)) * 0.5
-    kw, vw, ks_p, vs_p, _, _ = pack_int8(kf, vf)
-    kn = jax.random.normal(jax.random.fold_in(key, 3), (B, 1, Hkv, D)) * 0.5
-    vn = jax.random.normal(jax.random.fold_in(key, 4), (B, 1, Hkv, D)) * 0.5
-    kq_n, ks_n = _quant_kv(kn)  # (B, 1, Hkv, D) biased / (B, 1, Hkv)
-    vq_n, vs_n = _quant_kv(vn)
-    positions = jnp.asarray([0, 77, S], jnp.int32)  # last is a drop (>= S)
-    lens = jnp.minimum(positions + 1, S)
-
-    # oracle: aliased append kernel (tested in test_kv_append), then attend
-    wk, wv, wks, wvs = kv_append_packed(
-        kw[None], vw[None], ks_p[None], vs_p[None],
-        kq_n[:, 0], vq_n[:, 0], ks_n[:, 0], vs_n[:, 0],
-        positions, jnp.int32(0),
-    )
-    want = np.asarray(
-        decode_attention(q, wk[0], wv[0], lens, block_s=64,
-                         k_scale=wks[0], v_scale=wvs[0]),
-        np.float32,
-    )
-
-    # flat cache
-    got, k_upd, v_upd, ks_upd, vs_upd = decode_attention(
-        q, kw, vw, lens, block_s=64, k_scale=ks_p, v_scale=vs_p,
-        kv_new=(kq_n[:, 0], vq_n[:, 0], ks_n[:, 0], vs_n[:, 0], positions))
-    np.testing.assert_allclose(np.asarray(got, np.float32), want,
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(k_upd), np.asarray(wk[0]))
-    np.testing.assert_array_equal(np.asarray(v_upd), np.asarray(wv[0]))
-    np.testing.assert_array_equal(np.asarray(ks_upd), np.asarray(wks[0]))
-    np.testing.assert_array_equal(np.asarray(vs_upd), np.asarray(wvs[0]))
-
-    # stacked cache: only the indexed layer changes
-    L = 2
-    got, k_upd, v_upd, ks_upd, vs_upd = decode_attention(
-        q, jnp.stack([kw] * L), jnp.stack([vw] * L), lens, block_s=64,
-        layer_idx=jnp.int32(1),
-        k_scale=jnp.stack([ks_p] * L), v_scale=jnp.stack([vs_p] * L),
-        kv_new=(kq_n[:, 0], vq_n[:, 0], ks_n[:, 0], vs_n[:, 0], positions))
-    np.testing.assert_allclose(np.asarray(got, np.float32), want,
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(k_upd[1]), np.asarray(wk[0]))
-    np.testing.assert_array_equal(np.asarray(k_upd[0]), np.asarray(kw))
-    np.testing.assert_array_equal(np.asarray(ks_upd[1]), np.asarray(wks[0]))
-    np.testing.assert_array_equal(np.asarray(ks_upd[0]), np.asarray(ks_p))
-
-
 @pytest.mark.parametrize(
     "B,S,H,Hkv,bs,window",
     [
@@ -425,34 +317,51 @@ def test_decode_attention_sliding_window_int8_and_stacked():
     np.testing.assert_allclose(got, want, rtol=5e-2, atol=5e-3)
 
 
-def test_decode_attention_sliding_window_fused_append():
-    """kv_new + window: the appended row (position len-1) is always inside
-    the window; result == append-then-attend with the same window."""
-    B, S, H, Hkv, D, W = 3, 128, 8, 4, 128, 40
-    key = jax.random.PRNGKey(41)
+@pytest.mark.parametrize("n_split", [2, 3])
+def test_decode_attention_split_combine(n_split):
+    """Flash-decoding: splitting each slot's blocks over programs and
+    combining the partial softmaxes equals the unsplit result."""
+    B, S, H, Hkv, D = 3, 256, 8, 2, 128
+    key = jax.random.PRNGKey(n_split)
     q = jax.random.normal(key, (B, H, D), jnp.bfloat16)
-    k = jax.random.normal(jax.random.fold_in(key, 1), (B, S, Hkv, D),
-                          jnp.bfloat16) * 0.3
-    v = jax.random.normal(jax.random.fold_in(key, 2), (B, S, Hkv, D),
-                          jnp.bfloat16) * 0.3
-    kn = jax.random.normal(jax.random.fold_in(key, 3), (B, Hkv, D),
-                           jnp.bfloat16) * 0.3
-    vn = jax.random.normal(jax.random.fold_in(key, 4), (B, Hkv, D),
-                           jnp.bfloat16) * 0.3
-    positions = jnp.asarray([0, 77, S], jnp.int32)  # last is a drop (>= S)
-    lens = jnp.minimum(positions + 1, S)
-    kT, vT = hmT(k), hmT(v)
-    b_i = jnp.arange(B)[:, None, None]
-    h_i = jnp.arange(Hkv)[None, :, None]
-    kT2 = kT.at[(b_i, h_i, positions[:, None, None])].set(
-        kn[:, :, None, :], mode="drop")
-    vT2 = vT.at[(b_i, h_i, positions[:, None, None])].set(
-        vn[:, :, None, :], mode="drop")
-    want = np.asarray(
-        decode_attention(q, kT2, vT2, lens, block_s=64, window=W), np.float32)
-    got, k_upd, v_upd = decode_attention(
-        q, kT, vT, lens, block_s=64, kv_new=(kn, vn, positions), window=W)
-    np.testing.assert_allclose(np.asarray(got, np.float32), want,
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(k_upd), np.asarray(kT2))
-    np.testing.assert_array_equal(np.asarray(v_upd), np.asarray(vT2))
+    k = jax.random.normal(jax.random.fold_in(key, 1), (B, S, Hkv, D), jnp.bfloat16)
+    v = jax.random.normal(jax.random.fold_in(key, 2), (B, S, Hkv, D), jnp.bfloat16)
+    lengths = jnp.asarray([1, 130, 256], jnp.int32)
+    got = np.asarray(decode_attention(q, hmT(k), hmT(v), lengths, block_s=32,
+                                      n_split=n_split), np.float32)
+    want = np.asarray(ref_att(q, k, v, lengths))
+    np.testing.assert_allclose(got, want, rtol=5e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_prefill_attention_matches_ctx(quantized):
+    """Chunked-prefill kernel == the plain masked attention over the whole
+    cache (queries at positions 64..127 of their slots, one inert row)."""
+    from xbitops.kernels.attention import prefill_attention
+    from xbitops.models.llama import _attention, _unpack_kv_words
+
+    N, C, S, H, Hkv, D = 2, 64, 256, 8, 2, 128
+    key = jax.random.PRNGKey(7 + quantized)
+    q = jax.random.normal(key, (N, C, H, D), jnp.bfloat16)
+    kf = jax.random.normal(jax.random.fold_in(key, 1), (N, S, Hkv, D)) * 0.5
+    vf = jax.random.normal(jax.random.fold_in(key, 2), (N, S, Hkv, D)) * 0.5
+    positions = jnp.broadcast_to(64 + jnp.arange(C)[None], (N, C)).astype(jnp.int32)
+    positions = positions.at[1, 40:].set(S)  # padded tail of the second row
+    slots = jnp.asarray([1, 0], jnp.int32)
+    if quantized:
+        kw, vw, ks_p, vs_p, _, _ = pack_int8(kf, vf)
+        ctx = (_unpack_kv_words(kw, ks_p), _unpack_kv_words(vw, vs_p))
+        got = prefill_attention(q, kw, vw, positions, slots, block_s=64,
+                                k_scale=ks_p, v_scale=vs_p)
+    else:
+        kT, vT = hmT(kf.astype(jnp.bfloat16)), hmT(vf.astype(jnp.bfloat16))
+        ctx = (kT, vT)
+        got = prefill_attention(q, kT, vT, positions, slots, block_s=32)
+    ctx = tuple(c[slots] for c in ctx)
+    mask = (jnp.arange(S)[None, None, :] <= positions[:, :, None]) & (
+        positions[:, :, None] < S)
+    want = _attention(q.astype(jnp.float32), *ctx, mask, D ** -0.5)
+    got = np.asarray(got, np.float32)
+    live = np.asarray(positions < S)
+    np.testing.assert_allclose(got[live], np.asarray(want)[live], rtol=5e-2, atol=5e-3)
+    assert not got[~live].any()  # pad queries return zeros

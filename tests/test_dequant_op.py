@@ -1,38 +1,46 @@
-"""Dequant op/kernel tests: Pallas kernel (interpret mode on CPU) vs jnp oracle,
-at the reference's tolerances (DQ abs 1e-3, ``unpack_weight_2_to_7.cu:570``)."""
+"""Dequant op tests: the plain jnp dequant vs the C++ fp16 oracle and the jnp
+GPTQ oracle, at the reference's tolerance (DQ abs 1e-3,
+``unpack_weight_2_to_7.cu:570``)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import xbitops_tpu as xb
-from xbitops_tpu import formats
-from xbitops_tpu.ops.dequant import dequant_qtensor
+import xbitops as xb
+from xbitops import formats
+from xbitops.ops.dequant import dequant_qtensor
+from xbitops.utils import cpp_oracle
 
 BITS = [1, 2, 3, 4, 5, 6, 7, 8]
 
 
-def _case(K=256, N=256, bits=4, g=64, seed=0):
-    rng = np.random.default_rng(seed)
-    w = rng.standard_normal((K, N), dtype=np.float32) * 0.1
-    return xb.quantize_array(jnp.asarray(w), bits, g), w
+def _gptq_case(bits, K=256, N=128, g=64, seed=0):
+    rng = np.random.default_rng(seed + bits)
+    w = rng.standard_normal((K, N), dtype=np.float32) * 0.05
+    wq, scales, zeros = formats.quantize(w, bits, g)
+    s16 = scales.astype(np.float16)
+    qweight, _, qzeros = formats.gptq_pack(wq, s16, zeros, bits)
+    oracle = cpp_oracle.dequant_f16(qweight, s16, qzeros, bits, g, K)
+    return (jnp.asarray(qweight), jnp.asarray(s16), jnp.asarray(qzeros), g,
+            oracle.astype(np.float32))
 
 
 @pytest.mark.parametrize("bits", BITS)
 def test_kernel_matches_oracle_exact(bits):
-    qt, _ = _case(bits=bits)
-    got = np.asarray(dequant_qtensor(qt, out_dtype=jnp.float32))
-    ref = np.asarray(formats.dequant_qtensor_reference(qt, out_dtype=jnp.float32))
-    # identical unpack; f32 math may fuse to FMA differently => ulp-level only
-    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    qweight, s16, qzeros, g, oracle = _gptq_case(bits)
+    got = np.asarray(
+        xb.dequant(qweight, s16, qzeros, g, bits, 256, out_dtype=jnp.float32))
+    np.testing.assert_allclose(got, oracle, atol=1e-3, rtol=0)
 
 
 @pytest.mark.parametrize("out_dtype", [jnp.bfloat16, jnp.float16])
 def test_kernel_low_precision_outputs(out_dtype):
-    qt, _ = _case(bits=4)
-    got = np.asarray(dequant_qtensor(qt, out_dtype=out_dtype)).astype(np.float32)
-    ref = np.asarray(formats.dequant_qtensor_reference(qt, out_dtype=jnp.float32))
-    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=1e-2)
+    qweight, s16, qzeros, g, oracle = _gptq_case(4)
+    got = np.asarray(
+        xb.dequant(qweight, s16, qzeros, g, 4, 256, out_dtype=out_dtype)
+    ).astype(np.float32)
+    # one rounding to the output dtype on top of the fp16 oracle's
+    np.testing.assert_allclose(got, oracle, atol=1e-3, rtol=1e-2)
 
 
 def test_group_larger_than_tile():

@@ -19,12 +19,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xbitops_tpu.cli import main
-from xbitops_tpu.engine import Engine, Request
-from xbitops_tpu.io import load_autogptq, load_packed
-from xbitops_tpu.models import llama
-from xbitops_tpu.utils import structured
-from xbitops_tpu.utils.evaluate import sequence_nll
+from xbitops.cli import main
+from xbitops.engine import Engine, Request
+from xbitops.io import load_autogptq, load_packed
+from xbitops.models import llama
+from xbitops.utils import structured
+from xbitops.utils.evaluate import sequence_nll
 
 CYCLE = 8
 CFG = dataclasses.replace(
@@ -91,7 +91,7 @@ MOE_CFG = None  # built lazily: dataclass import order
 
 
 def _moe_cfg():
-    from xbitops_tpu.models.moe import MoeConfig
+    from xbitops.models.moe import MoeConfig
 
     return dataclasses.replace(
         MoeConfig.tiny_moe(vocab=256, seq=64), num_layers=2

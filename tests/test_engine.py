@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xbitops_tpu.engine import Engine, Request
-from xbitops_tpu.engine.sampling import sample_tokens
-from xbitops_tpu.models import llama
-from xbitops_tpu.parallel import mesh as meshlib
+from xbitops.engine import Engine, Request
+from xbitops.engine.sampling import sample_tokens
+from xbitops.models import llama
+from xbitops.parallel import mesh as meshlib
 
 CFG = llama.LlamaConfig.tiny()
 
@@ -180,7 +180,7 @@ def test_engine_burst_matches_single_step(params):
 
 def test_engine_no_donation_matches(params):
     """donate_cache=False (the fast path when two cache buffers fit HBM —
-    donation triggers XLA's per-iteration VMEM re-staging of the stacked
+    donation triggers XLA's per-iteration re-staging of the stacked
     scale arrays) produces identical tokens to the donating path."""
     reqs = lambda: [
         Request(prompt=PROMPTS[0], max_new_tokens=6),
@@ -247,7 +247,7 @@ def test_engine_kv_quant_auto_policy(params, monkeypatch):
     would not fit HBM (the donation regime).  Explicit values always win."""
     import dataclasses
 
-    from xbitops_tpu.engine import engine as engmod
+    from xbitops.engine import engine as engmod
 
     # tiny max_seq_len (64) -> short-context regime -> bf16
     assert Engine(params, CFG, slots=2).kv_quant is False
@@ -315,7 +315,7 @@ def test_engine_spec_decode_draft_model_nonperiodic():
     the identical greedy stream (VERDICT r4 item 6)."""
     import dataclasses
 
-    from xbitops_tpu.utils import structured
+    from xbitops.utils import structured
 
     cfg = dataclasses.replace(
         llama.LlamaConfig.tiny(vocab=256, seq=64), num_layers=2)
@@ -356,7 +356,7 @@ def test_engine_spec_decode_draft_model_long_prompt_and_refill():
     target's in every admission wave."""
     import dataclasses
 
-    from xbitops_tpu.utils import structured
+    from xbitops.utils import structured
 
     cfg = dataclasses.replace(
         llama.LlamaConfig.tiny(vocab=256, seq=64), num_layers=2)
@@ -387,7 +387,7 @@ def test_engine_spec_decode_acceptance_on_repetitive_model(params):
     draft's use case, synth.copy_llama_params) spec decode must (a) accept
     nearly every draft, (b) still emit exactly the plain greedy stream, and
     (c) cut the number of device dispatches by ~gamma."""
-    from xbitops_tpu.utils import synth
+    from xbitops.utils import synth
 
     cp = synth.copy_llama_params(jax.random.PRNGKey(0), CFG, bits=4,
                                  group_size=32, period=4)

@@ -1,4 +1,4 @@
-"""Act-order path + perplexity parity (BASELINE config 4, model level).
+"""Act-order path + perplexity parity (model level).
 
 A randomly-initialized model has near-uniform output, so perplexity parity is
 checked as: quantized perplexities (plain and act-order) stay within a small
@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import xbitops_tpu as xb
-from xbitops_tpu import formats
-from xbitops_tpu.models import llama
-from xbitops_tpu.utils.evaluate import perplexity, sequence_nll
+import xbitops as xb
+from xbitops import formats
+from xbitops.models import llama
+from xbitops.utils.evaluate import perplexity, sequence_nll
 
 CFG = llama.LlamaConfig.tiny()
 
@@ -81,7 +81,7 @@ def test_act_order_decode_runs(token_stream):
 
 
 def test_perplexity_parity_a8_prefill(token_stream):
-    """W4A8 prefill (int8-MXU activations): perplexity within noise of the
+    """W4A8 prefill (int8 activations): perplexity within noise of the
     W4A16 model on the same stream (VERDICT round-2 item 2's gate)."""
     import dataclasses
 

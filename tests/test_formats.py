@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xbitops_tpu import formats
+from xbitops import formats
 
 BITS = [1, 2, 3, 4, 5, 6, 7, 8]
 
@@ -161,7 +161,7 @@ def test_bytes_packed():
         jnp.zeros((256, 128), jnp.int32), jnp.ones((4, 128)), jnp.zeros((4, 128), jnp.int32),
         bits=5, group_size=64,
     )
-    assert qt.tile_k == 256  # 1-bit plane needs >= 8 word sublanes per tile
+    assert qt.tile_k == 256  # 1-bit plane needs >= 8 word rows per tile
     # planes store exactly bits/weight; scales are tiled (T=1, gt padded to 8,
     # N); f32 source scales store f32 (4 B), fp16 sources store fp16 BITS (2 B)
     assert qt.bytes_packed() == 256 * 128 * 5 // 8 + 2 * 8 * 128 * 4
@@ -187,7 +187,7 @@ def test_storage_bits_pow2_padding(bits):
     planes — dequant identical, kernels run the single/fewer-plane fast path.
     ("auto" pads only the widths measured slower than padded storage; an
     explicit int forces padding for the rest.)"""
-    import xbitops_tpu as xb
+    import xbitops as xb
 
     rng = np.random.default_rng(bits)
     w = (rng.standard_normal((256, 128)) * 0.1).astype(np.float32)
@@ -214,8 +214,8 @@ def test_storage_bits_pow2_padding(bits):
 
 def test_storage_bits_roundtrip_checkpoint(tmp_path):
     """value_bits survives save_packed/load_packed."""
-    import xbitops_tpu as xb
-    from xbitops_tpu.io import load_packed, save_packed
+    import xbitops as xb
+    from xbitops.io import load_packed, save_packed
 
     w = jnp.asarray(np.random.default_rng(0).standard_normal((256, 128)) * 0.1,
                     jnp.float32)

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import xbitops_tpu as xb
-from xbitops_tpu import formats
-from xbitops_tpu.ops.gptq import gptq_quantize_array, gptq_quantize_weight, hessian_from_inputs
+import xbitops as xb
+from xbitops import formats
+from xbitops.ops.gptq import gptq_quantize_array, gptq_quantize_weight, hessian_from_inputs
 
 K, N, BITS, GROUP = 256, 128, 4, 128
 
@@ -75,9 +75,9 @@ def test_gptq_act_order(setup):
 def test_gptq_model_driver():
     """Layer-by-layer GPTQ of a tiny dense model: runs, decodes finite, and
     perplexity on the calibration stream is no worse than RTN quantization."""
-    from xbitops_tpu.models import llama
-    from xbitops_tpu.ops.gptq import quantize_model_gptq
-    from xbitops_tpu.utils.evaluate import perplexity
+    from xbitops.models import llama
+    from xbitops.ops.gptq import quantize_model_gptq
+    from xbitops.utils.evaluate import perplexity
 
     cfg = llama.LlamaConfig.tiny()
     dense = llama.init_params(jax.random.PRNGKey(0), cfg, bits=None)

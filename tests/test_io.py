@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 from safetensors import numpy as st_np
 
-from xbitops_tpu import formats
-from xbitops_tpu.io import load_autogptq, load_packed, save_packed
-from xbitops_tpu.models import llama
+from xbitops import formats
+from xbitops.io import load_autogptq, load_packed, save_packed
+from xbitops.models import llama
 
 H, FFN, LAYERS, HEADS, KV_HEADS, VOCAB = 128, 256, 2, 4, 2, 512
 HEAD_DIM = 32
@@ -157,7 +157,7 @@ def test_load_autogptq_tp(ckpt_dir):
         formats.dequant_qtensor_reference(p1["layers"][0]["wo"], jnp.float32)
     )
     qt = params["layers"][0]["wo"]
-    from xbitops_tpu.parallel.tp import squeeze_row_shard
+    from xbitops.parallel.tp import squeeze_row_shard
     import dataclasses as dc
 
     Ks = qt.K_logical
@@ -230,7 +230,7 @@ def mixtral_ckpt_dir(tmp_path_factory):
 
 
 def test_load_mixtral(mixtral_ckpt_dir):
-    from xbitops_tpu.models.moe import MoeConfig
+    from xbitops.models.moe import MoeConfig
 
     params, cfg = load_autogptq(str(mixtral_ckpt_dir), max_seq_len=32)
     assert isinstance(cfg, MoeConfig)
@@ -338,7 +338,7 @@ def _dense_from_gptq(tensors, prefix, k):
 def test_load_autogptq_desc_act_tp(desc_ckpt_dir):
     """desc_act on every linear: tp=1 (down-proj fold) and tp=2 (fold +
     gathered o_proj) both match the dense GPTQ-semantics forward."""
-    from xbitops_tpu.parallel import mesh as meshlib, model_tp
+    from xbitops.parallel import mesh as meshlib, model_tp
 
     d = desc_ckpt_dir
     tensors = st_np.load_file(str(d / "model.safetensors"))
@@ -370,7 +370,7 @@ def test_load_autogptq_desc_act_tp(desc_ckpt_dir):
         ))
     # the FOLD itself, gated exactly (f32 accum, reference tolerance): gate's
     # outputs land in down-sort order, and down consumes sorted activations
-    from xbitops_tpu.ops.qmatmul import qmatmul
+    from xbitops.ops.qmatmul import qmatmul
 
     rng = np.random.default_rng(3)
     down_order = np.argsort(

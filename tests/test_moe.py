@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xbitops_tpu import formats
-from xbitops_tpu.engine.engine import Engine, Request
-from xbitops_tpu.models import llama, moe
+from xbitops import formats
+from xbitops.engine.engine import Engine, Request
+from xbitops.models import llama, moe
 
 CFG = moe.MoeConfig.tiny_moe()
 
@@ -64,7 +64,7 @@ def _qmatmul_oracle(hx, layer, cfg):
     """Per-token loop through the SAME qmatmul the dispatch path uses —
     isolates the routing/scatter/combine machinery at f32-tight tolerance
     (quantization numerics are gated separately vs the dense oracle)."""
-    from xbitops_tpu.ops.qmatmul import qmatmul
+    from xbitops.ops.qmatmul import qmatmul
 
     B, T, h = hx.shape
     k, ffn = cfg.experts_per_token, cfg.intermediate_size
@@ -177,7 +177,7 @@ def test_moe_rejects_stacking(params):
 def test_moe_expert_parallel(params):
     """EP over an 8-device expert mesh == single-chip (4 experts -> use a
     4-device submesh axis)."""
-    from xbitops_tpu.parallel import mesh as meshlib
+    from xbitops.parallel import mesh as meshlib
 
     mesh = meshlib.make_mesh((4,), ("expert",))
     B, T = 2, 5

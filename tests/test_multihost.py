@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from xbitops_tpu.models import llama
-from xbitops_tpu.parallel import model_tp
-from xbitops_tpu.parallel.multihost import make_pod_mesh, overlap_flags
+from xbitops.models import llama
+from xbitops.parallel import model_tp
+from xbitops.parallel.multihost import make_pod_mesh
 
 
 def test_make_pod_mesh_shapes():
@@ -14,7 +14,9 @@ def test_make_pod_mesh_shapes():
     assert dict(mesh.shape) == {"data": 2, "model": 4}
     mesh = make_pod_mesh(tp=8)
     assert dict(mesh.shape) == {"data": 1, "model": 8}
-    assert "collective" in overlap_flags()
+    # each model-axis row holds consecutive devices of one process
+    rows = np.asarray(make_pod_mesh(tp=4).devices)
+    assert [[d.id for d in r] for r in rows] == [[0, 1, 2, 3], [4, 5, 6, 7]]
 
 
 def test_pod_mesh_runs_dp_tp_decode():

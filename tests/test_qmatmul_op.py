@@ -1,7 +1,7 @@
 """Fused dequant+matmul tests vs the dense-on-dequantized oracle.
 
 Tolerances track the reference's own GEMV checks: f32-accum rel 1e-5/abs 3e-4
-(``gemv_w4a16_c32.cu:421-422``) for the precise path; looser for the bf16 MXU
+(``gemv_w4a16_c32.cu:421-422``) for the precise path; looser for the bf16
 path (weights rounded to bf16, ~2^-8 relative per element).
 """
 
@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import xbitops_tpu as xb
-from xbitops_tpu import formats
+import xbitops as xb
+from xbitops import formats
 
 BITS = [1, 2, 3, 4, 5, 6, 7, 8]
 
@@ -140,7 +140,7 @@ def test_qmatmul_a8(bits):
 
 
 def test_qmatmul_a8_stacked():
-    # stacked (scalar-prefetch layer indexing) works with the a8 kernel
+    # stacked (layer-indexed) QTensors work with the a8 path
     import jax
 
     a, qt0, _ = _case(32, 256, 128, 4, 128, seed=0)
@@ -155,8 +155,8 @@ def test_qmatmul_a8_stacked():
 
 
 def test_qmatmul_a8_perchannel_exact():
-    """Per-channel scales (group_size >= K) take the int32-exact a8 fast
-    path (one rescale at the output, no per-group f32 work)."""
+    """Per-channel scales (group_size >= K): one scale group spans all of K
+    and the a8 product stays int32-exact up to the output rescale."""
     rng = np.random.default_rng(5)
     for bits in (4, 8):
         w = (rng.standard_normal((512, 256)) * 0.05).astype(np.float32)
@@ -192,8 +192,8 @@ def test_qmatmul_stacked_act_order():
 
 def test_requantize_a8_tile_channel():
     """requantize_a8: 8-bit per-channel form matmuls like the original (error
-    bounded by the column grid, ~10x under the 4-bit grid) and routes to the
-    a8 kernel's int32-exact per-channel fast path."""
+    bounded by the column grid, ~10x under the 4-bit grid) and matmuls on
+    the a8 path like the fake-quant oracle."""
     K, N, g = 1024, 256, 128
     rng = np.random.default_rng(23)
     w = rng.standard_normal((K, N)).astype(np.float32) * 0.1
@@ -213,3 +213,52 @@ def test_requantize_a8_tile_channel():
         xb.qmatmul(a, rq, a8=True, out_dtype=jnp.float32, use_kernel=False)
     )
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("bits", BITS)
+def test_qmatmul_kernel_all_widths(bits):
+    """At the default 128-group tiling (the shapes of a real model) the
+    single-plane widths run the fused kernel, the multi-plane widths the
+    plain path; both match the f32 oracle."""
+    from xbitops.ops.qmatmul import use_fused_kernel
+
+    a, qt, expect = _case(8, 512, 256, bits, 128, seed=10 + bits)
+    assert use_fused_kernel(8, qt) == (bits in (1, 2, 4, 8))
+    got = np.asarray(xb.qmatmul(a, qt, out_dtype=jnp.float32, precise=True))
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=3e-4)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3])
+def test_qmatmul_kernel_split_k(n_split):
+    """Split-K partial sums (including an uneven last split) add up to the
+    unsplit product."""
+    from xbitops.kernels.qgemv_kernel import kernel_plan, qmatmul_kernel
+
+    a, qt, expect = _case(4, 1024, 128, 8, 128, seed=5)
+    assert kernel_plan(qt).units_per_tile * (qt.K // qt.tile_k) == 4
+    got = np.asarray(qmatmul_kernel(a, qt, out_dtype=jnp.float32, precise=True,
+                                    n_split=n_split))
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=3e-4)
+
+
+def test_qmatmul_wrapper_choices():
+    """Kernel choice, column blocks, split factor and the paired-plane
+    activation order."""
+    from xbitops.kernels import qgemv_kernel as qk
+    from xbitops.ops.qmatmul import KERNEL_MAX_M, use_fused_kernel
+
+    _, qt, _ = _case(1, 512, 256, 4, 128)
+    assert use_fused_kernel(KERNEL_MAX_M, qt)
+    assert not use_fused_kernel(KERNEL_MAX_M + 1, qt)  # prefill: plain path
+    _, odd, _ = _case(1, 256, 128, 4, 16)  # 16-row groups: no 16-row unit
+    assert qk.kernel_plan(odd) is None and not use_fused_kernel(1, odd)
+    assert qk.block_n(4096) == qk.BLOCK_N
+    assert qk.block_n(32064) == 64  # a 4-way shard of a 128256 vocab
+    assert qk.block_n(8) is None
+    assert qk.split_plan(32, 1, 8) == min(8, qk.TARGET_PROGRAMS // 32)
+    assert qk.split_plan(qk.TARGET_PROGRAMS, 1, 8) == 1
+    a = jnp.arange(2 * 32).reshape(2, 32)
+    got = np.asarray(qk.pair_order(a, 32))  # wt = 4 word rows per tile
+    want = [0, 2, 4, 6, 1, 3, 5, 7]  # pair slot 0: even rows, then odd rows
+    np.testing.assert_array_equal(got[0, :8], want)
+    np.testing.assert_array_equal(np.sort(got[1]), np.asarray(a[1]))

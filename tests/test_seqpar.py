@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from xbitops_tpu.models import llama
-from xbitops_tpu.parallel import mesh as meshlib
-from xbitops_tpu.parallel import seqpar
+from xbitops.models import llama
+from xbitops.parallel import mesh as meshlib
+from xbitops.parallel import seqpar
 
 
 @pytest.fixture(scope="module")

@@ -8,9 +8,9 @@ import urllib.request
 import jax
 import pytest
 
-from xbitops_tpu.engine.engine import Engine
-from xbitops_tpu.engine.server import ServingEndpoint
-from xbitops_tpu.models import llama
+from xbitops.engine.engine import Engine
+from xbitops.engine.server import ServingEndpoint
+from xbitops.models import llama
 
 CFG = llama.LlamaConfig.tiny()
 
