@@ -62,9 +62,11 @@ TOL_ATT_INT8 = 2e-2
 #   round to bf16 between layers on the kernel path, the reference keeps f32
 #   dot operands.
 TOL_LOGITS_REL = 3e-2
-# - TP=4 vs one card, relative to the largest |logit|: same arithmetic, the
-#   row-parallel sums are taken in another order.
-TOL_TP_REL = 1e-2
+# - TP=4 vs one card, relative to the largest |logit|: each card's partial
+#   sum of a row-parallel layer rounds to bf16 before the all-reduce, and
+#   the difference grows through 32 layers of bf16 activations, as the
+#   kernel-vs-reference difference does (TOL_LOGITS_REL).
+TOL_TP_REL = 3e-2
 
 
 def log(*a):

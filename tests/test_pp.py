@@ -2,6 +2,8 @@
 single-chip stacked-model paths in ``models/llama.py`` (the reference has no
 parallelism at all — SURVEY §2 checklist)."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +13,10 @@ from xbitops.models import llama
 from xbitops.parallel import mesh as meshlib
 from xbitops.parallel import pp
 
-CFG = llama.LlamaConfig.tiny(seq=64)  # 2 layers -> 2 stages of 1
+# 2 layers -> 2 stages of 1.  Pipeline stages attend their microbatch's slots
+# through the plain attention path, so the single-chip oracle takes it too
+# (flash_decode=False): cache writes then stay bit-identical.
+CFG = dataclasses.replace(llama.LlamaConfig.tiny(seq=64), flash_decode=False)
 
 
 @pytest.fixture(scope="module")
@@ -74,8 +79,6 @@ def test_pp_decode_burst_inactive_and_capacity(pipe_mesh):
     params = _params()
     B, n_steps = 4, 4
     toks, cache = _prefilled(params, B)
-    import dataclasses
-
     S = cache.S
     # slot 3 sits one position from capacity: only 1 of 4 steps lands
     lens = cache.lengths.at[3].set(S - 1)

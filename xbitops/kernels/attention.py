@@ -98,18 +98,6 @@ def _kernel(bs, D, scale, quant, paged, psz, window, n_split, S_rows,
                               other=0)
         return at[...]
 
-    def pv(p, vals):
-        """p (f32) @ vals (exact in ``cd``): p splits into three ``cd``
-        parts, so the tensor-core product keeps all 24 bits of p and the
-        result matches an f32 softmax-weighted sum."""
-        out = None
-        for _ in range(3):
-            part = p.astype(cd)
-            d = pl.dot(part, vals)
-            out = d if out is None else out + d
-            p = p - part.astype(jnp.float32)
-        return out
-
     def live_of(spos):
         live = spos[None, :] <= pos[:, None]
         if window:
@@ -144,7 +132,7 @@ def _kernel(bs, D, scale, quant, paged, psz, window, n_split, S_rows,
                 l_new = l_new + p.sum(axis=1)
                 vsj = load_rows(vs_ref, page, w0, bw, (j,)).astype(jnp.float32)
                 vj = (((vw >> (8 * j)) & 255) - 128).astype(cd)
-                acc_new = acc_new + pv(p * vsj[None, :], vj)
+                acc_new = acc_new + pl.dot((p * vsj[None, :]).astype(cd), vj)
             return acc_new, m_new, l_new
         kb = load_rows(k_ref, page, row, bs).astype(cd)  # (bs, D)
         vb = load_rows(v_ref, page, row, bs).astype(cd)
@@ -154,7 +142,7 @@ def _kernel(bs, D, scale, quant, paged, psz, window, n_split, S_rows,
         alpha = jnp.exp(m - m_new)
         p = jnp.where(live, jnp.exp(s - m_new[:, None]), 0.0)
         l_new = l * alpha + p.sum(axis=1)
-        acc_new = acc * alpha[:, None] + pv(p, vb)
+        acc_new = acc * alpha[:, None] + pl.dot(p.astype(cd), vb)
         return acc_new, m_new, l_new
 
     init = (
@@ -313,7 +301,7 @@ def decode_attention(
 
 
 @functools.partial(
-    jax.jit, static_argnames=("block_s", "block_q", "interpret", "window")
+    jax.jit, static_argnames=("block_s", "interpret", "window")
 )
 def prefill_attention(
     q: jax.Array,          # [N, T, H, D] chunk queries
@@ -322,7 +310,6 @@ def prefill_attention(
     positions: jax.Array,  # int32 [N, T] global positions (>= S_cap = pad)
     slot_ids: jax.Array,   # int32 [N] cache rows (out of range = inert row)
     block_s: Optional[int] = None,
-    block_q: Optional[int] = None,
     interpret: Optional[bool] = None,
     layer_idx: Optional[jax.Array] = None,
     k_scale: Optional[jax.Array] = None,
@@ -348,7 +335,7 @@ def prefill_attention(
         if window >= S:
             window = None
     bs = _pick_block(block_s, quant, None)
-    tq = min(block_q or max(1, 64 // rep), T)
+    tq = min(max(1, 64 // rep), T)
     QT = common.cdiv(T, tq)
     Tp = QT * tq
     positions = positions.astype(jnp.int32)

@@ -20,10 +20,8 @@ from xbitops.kernels.qgemv_kernel import block_n, kernel_plan, qmatmul_kernel
 
 # Rows above which the plain path (dense dequant + the library GEMM) replaces
 # the fused kernel.  On the card the kernel wins up to 32 rows, ties or
-# loses at 64 and loses from 128 on (PERF.md); up to 64 it keeps the integer
-# weights exact, where the plain path rounds each dequantized weight to
-# bf16, so every decode batch up to 64 keeps one numerics.
-KERNEL_MAX_M = 64
+# loses at 64 and loses from 128 on (PERF.md).
+KERNEL_MAX_M = 32
 
 
 def use_fused_kernel(M: int, qt: QTensor) -> bool:
